@@ -1,11 +1,11 @@
-"""Stage-by-stage decomposition of the probe_expand roofline straggler.
+"""Stage-by-stage decomposition of the join probe's candidate expansion.
 
-roofline.py reports probe_expand at ~1.38x its model (g*N + sc*N + 2*g*c).
-This harness times each stage of the real path in isolation on the chip so
-the overshoot can be attributed (descriptor int64 gather? cumsum? cummax?
-the [1, out_cap] take_rows vs a plain 1-D take?) and a fix validated.
+Times each stage of the real path in isolation on the device (descriptor
+gather, cumsum, scatter + cummax, the [1, out_cap] take_rows vs a plain 1-D
+take, the perm dereference) so the probe's cost can be attributed and a
+fix validated.
 
-Run: python benches/probe_expand_micro.py   (~1 min warm cache)
+Run: python benches/probe_expand_micro.py
 """
 
 from __future__ import annotations
@@ -32,13 +32,11 @@ ITERS = 10
 
 def timeit(fn, *args):
     out = fn(*args)
-    jax.tree_util.tree_map(lambda x: x.block_until_ready(), out)
+    jax.block_until_ready(out)
     ts = []
     for _ in range(ITERS):
         t0 = time.perf_counter()
-        out = fn(*args)
-        leaf = jax.tree_util.tree_leaves(out)[0]
-        float(leaf.reshape(-1)[0])
+        jax.block_until_ready(fn(*args))
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts)) * 1e3
 
@@ -61,7 +59,7 @@ def main():
     # Every stage returns a FULL-materialization reduction (jnp.sum, or
     # sum(x * iota) for prefix-scan outputs): a [-1]-slice consumer lets XLA
     # rewrite the whole stage to a cheap reduction / 1-index gather
-    # (roofline.py measured 2-5 ms "argsorts" that honestly cost ~8 ms).
+    # (a last-element consumer lets XLA skip most of the stage's work).
     iota_c = jnp.arange(OUT_CAP, dtype=jnp.int64)
     iota_n = jnp.arange(N, dtype=jnp.int64)
 

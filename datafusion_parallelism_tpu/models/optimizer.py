@@ -164,7 +164,7 @@ class PushSemiJoinRule:
     semi keys. Decorrelated IN/EXISTS subqueries attach at the WHERE level —
     above the whole FROM-clause join tree — so Q18's HAVING-subquery filter
     otherwise probes the full customer⨝orders⨝lineitem (60M rows at SF10,
-    an 8 GB candidate capacity that OOMs a v5e) instead of filtering the
+    an 8 GB candidate capacity) instead of filtering the
     15M-row orders scan down to a few hundred rows first. Filtering a side
     of an inner join before or after the join is equivalent (semi/anti
     never duplicate rows and test only key membership), so the rewrite is

@@ -4,7 +4,7 @@ Filter/Projection/Aggregate/Sort execs that the reference reuses).
 
 Each node carries its output schema, computed at plan time, and an
 `execute(tables) -> DeviceTable` that is jit-traceable; the executor traces
-the whole query DAG into ONE XLA program — the TPU replacement for the
+the whole query DAG into ONE XLA program — the replacement for the
 reference's tokio-stream pipeline (the OnceLock shared-executor trick in
 parallel_hash_join.rs:140-152 exists so all partitions/joins make progress
 concurrently; under XLA, whole-program compilation gives that for free).

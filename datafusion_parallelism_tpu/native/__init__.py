@@ -1,7 +1,7 @@
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference's native layer is its Rust runtime; here the host-side
-data-loading hot path is C++ (the TPU compute path is XLA/Pallas — kernels do
+data-loading hot path is C++ (the device compute path is XLA — kernels do
 not belong here). Libraries compile on demand with g++ into
 native/_build/ and load via ctypes; callers must handle ImportError and fall
 back to pure-Python paths (tests run everywhere).

@@ -1,6 +1,6 @@
 """Hash aggregate: sort-based grouping + segment reductions.
 
-TPU-native design: instead of a concurrent grouping hash table, rows are
+Vectorized design: instead of a concurrent grouping hash table, rows are
 sorted by group-key hash (one XLA sort), group boundaries come from adjacent
 comparison (including validity — SQL GROUP BY treats NULLs as one group), and
 every aggregate is a `jax.ops.segment_*` reduction with a static segment
@@ -325,8 +325,7 @@ def hash_aggregate_counted(t: DeviceTable, group_keys: List[str],
     # The row hash does NOT ride the gather: boundary detection compares the
     # actual key VALUES below, which subsumes any hash comparison (equal
     # values => equal hashes; unequal values open a boundary regardless of
-    # hash) — and the sidecar word widened the row past the measured W=4->6
-    # per-index gather cliff (5.3 -> 14 ns/idx on v5e).
+    # hash) — so the sidecar word would only widen every gathered row.
     from ..utils.columnar import PackedTable, pack_table, unpack_table
     pt = pack_table(t)
     g_ = pt.take_rows(perm)

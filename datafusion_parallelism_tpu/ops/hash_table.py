@@ -1,8 +1,8 @@
-"""Join lookup structures: the TPU-native redesign of the reference's ten
+"""Join lookup structures: the vectorized redesign of the reference's ten
 concurrent hash-map build versions (reference src/operator/version{1..10},
 src/operator/build_implementation.rs:34-112).
 
-On a TPU there are no locks, shards, or compaction barriers: N concurrent
+Under XLA there are no locks, shards, or compaction barriers: N concurrent
 writers + freeze collapses into phased dataflow — hash, bucket-count
 (scatter-add), prefix-sum, stable sort into bucket order. The result is a CSR
 ("bucket offsets + row permutation") structure that the probe side reads with
@@ -33,10 +33,9 @@ import jax.numpy as jnp
 
 
 class JoinStrategy(enum.Enum):
-    """The engine's analog of the reference's 10-variant JoinReplacement axis.
-    A Pallas-kernel strategy was evaluated and rejected for this hardware
-    generation — see docs/TPU_PERFORMANCE_NOTES.md (Mosaic dynamic_gather
-    cannot span vregs; XLA's gather is the practical floor)."""
+    """The engine's analog of the reference's 10-variant JoinReplacement
+    axis. All three strategies are plain XLA; a hand-written GPU join kernel
+    is ROADMAP Queue 1 item 7."""
     CSR = "csr"          # bucketed hash table (default)
     SORT = "sort"        # sort-merge on hashes
     OA = "oa"            # open-addressing linear probe (BASELINE north-star
@@ -49,9 +48,8 @@ class JoinTable(NamedTuple):
     kind_csr:  start_count[2, T+1] int32 rows (bucket starts; bucket counts)
                — the probe fetches both halves of a bucket descriptor in ONE
                2-row minor-axis gather. int32 pair rows, NOT packed int64:
-               an int64 gather measures 15.1 ns/idx on v5e vs 9.1 for the
-               [2, T] int32 row gather at the same table size (int64 cells
-               are emulated as split planes and gather pays per plane).
+               the pair rows won the A/B on the first device, where int64
+               was emulated; whether the GPU agrees is ROADMAP Queue 1.
                Bucket T holds rows with null keys / padding so valid buckets
                never see them. offsets[T+2] kept for inspection/benches.
                Hash equality is NOT rechecked at probe time: the join
@@ -265,11 +263,8 @@ def probe_ranges(table: JoinTable, probe_hashes: jnp.ndarray,
         T = table.offsets.shape[0] - 2
         slot = slot_of(probe_hashes, T)
         if table.start_count.ndim == 2:
-            # ONE 2-row minor-axis gather (9.1 ns/idx vs 15.1 for int64);
-            # via take_rows for its >2M-index HBM-temp chunking
-            from ..utils.columnar import PackedTable
-            sc = PackedTable(table.start_count, {}, None).take_rows(slot) \
-                .packed
+            # ONE 2-row minor-axis gather fetches start and count
+            sc = jnp.take(table.start_count, slot, axis=1, mode="clip")
             start, count = sc[0], sc[1]
         else:  # DFP_DESC_I64 packed-int64 descriptor (A/B)
             sc = jnp.take(table.start_count, slot, mode="clip")

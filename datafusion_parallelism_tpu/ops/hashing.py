@@ -4,12 +4,12 @@ Analog of the reference's `calculate_hash` (reference src/shared/shared.rs:11-16
 which uses `create_hashes` with `ahash::RandomState::with_seed(0)`): one seeded,
 deterministic hash per row over the join/group key columns.
 
-TPU-first choices:
-  * 32-bit hashes (TPU has no native 64-bit lanes; 64-bit int ops are emulated
-    pairs). Collisions are fine — every consumer re-checks key equality by
+Design choices:
+  * 32-bit hashes (half the bytes of 64-bit ones in every sort and gather).
+    Collisions are fine — every consumer re-checks key equality by
     value, exactly like the reference's `equal_rows_arr` recheck.
-  * murmur3-style finalizer + boost-style combine, all uint32 VPU ops.
-  * The same hash drives: hash-table slots (low bits), cross-chip partition
+  * murmur3-style finalizer + boost-style combine, all uint32 vector ops.
+  * The same hash drives: hash-table slots (low bits), cross-device partition
     routing (high bits), and group-by pre-sort — so both join sides co-partition
     by construction.
 """

@@ -1,6 +1,6 @@
 """Vectorized hash join: build + probe for all eight join types.
 
-TPU-first redesign of reference src/operator/probe_lookup_implementation/
+Vectorized redesign of reference src/operator/probe_lookup_implementation/
 (inner/full/left_outer/left_semi/left_anti/right_outer/right_semi/right_anti)
 and the shared match kernels (reference src/shared/shared.rs:29-92,
 src/shared/datafusion_private.rs:40-328):
@@ -267,13 +267,9 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
         # the probe KEY words (+ validity word) RIDE THE REPLICATION as extra
         # sidecar rows: the replication's fill gather and the old separate
         # probe-row fetch used IDENTICAL indices, so bundling them turns two
-        # out_cap-index gathers into one slightly wider one (W=2 -> 4 narrow
-        # rows cost 3.4 -> 5.3 ns/idx on v5e; a separate W=1 gather costs
-        # 6.7 ns/idx on its own).
-        # Row-slice + stack, NOT fancy indexing: a gather along the major
-        # axis gets a W-minor output layout that the chunked take_rows loop
-        # carry inherits — [7, 33.5M] W-minor tiles pad 18.3x = a 16 GB HLO
-        # temp (SF10 Q7 OOM). Stacked slices keep the [W, cap] major layout.
+        # out_cap-index gathers into one slightly wider one.
+        # Row-slice + stack, NOT fancy indexing: stacked slices keep the
+        # [W, cap] major layout the replication gathers.
         rep_src = jnp.stack([ppacked.packed[r] for r in prows]
                             + [jnp.arange(mcap, dtype=jnp.int32),
                                cr.start - cr.base])
@@ -393,10 +389,7 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
     def pairs_table() -> DeviceTable:
         if gbt is None:
             # deferred path: compact the (build id, probe id) index pairs,
-            # then fetch full rows ONCE at the surviving positions. The index
-            # gather goes through take_rows for its >2M-index CHUNKING — a
-            # direct jnp.take at 33.5M indices wants a 17 GB HLO temp
-            # (one tile row per index) and OOMs HBM.
+            # then fetch full rows ONCE at the surviving positions.
             cidx, n_match = compaction_indices(match)
             bfirst = pos if bp_full is None else cand_build_idx
             comp = PackedTable(jnp.stack([bfirst, probe_idx]), {},

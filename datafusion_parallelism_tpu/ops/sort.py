@@ -1,8 +1,8 @@
 """ORDER BY: one multi-key lexicographic XLA sort.
 
 Redesign of the reference's batch-ordering study (reference benches/sort.rs —
-k-way merge vs concat+sort): on TPU a single `jax.lax.sort` with multiple key
-operands beats any merge strategy; all keys sort in one fused pass.
+k-way merge vs concat+sort): under XLA a single `jax.lax.sort` with multiple
+key operands replaces any merge strategy; all keys sort in one fused pass.
 
 Key transforms: DESC negates; NULLs follow postgres semantics (larger than
 any value: last under ASC, first under DESC); padding rows always sort last

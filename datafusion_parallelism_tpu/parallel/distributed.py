@@ -4,12 +4,12 @@ operator, re-expressed as SPMD dataflow).
 The reference shares ONE concurrent hash map between N tokio partition
 streams, with a cooperative compaction barrier at the end of the build
 (reference src/operator/parallel_hash_join.rs:140-152,
-src/operator/build_implementation.rs:50-112). On TPU "shared memory across
-partitions" does not exist: each chip owns a hash range instead.
+src/operator/build_implementation.rs:50-112). Across devices "shared memory
+across partitions" does not exist: each device owns a hash range instead.
 
 Three modes (the planner picks by statistics + join type):
 
-  * PARTITIONED — both sides hash-shuffled over ICI (all-to-all), then each
+  * PARTITIONED — both sides hash-shuffled (all-to-all), then each
     chip runs the single-chip vectorized join on its range. Correct for all
     eight join types: every key lives on exactly one chip, so visited-row
     bookkeeping stays local.
@@ -20,7 +20,8 @@ Three modes (the planner picks by statistics + join type):
     build rows would double-count LEFT*/FULL unmatched output.
   * SKEW_SALTED — histogram pass finds heavy key buckets; heavy build rows
     replicate everywhere, heavy probe rows stay local, the rest hash-shuffle
-    (parallel/skew.py). Replaces work stealing, which TPUs cannot do.
+    (parallel/skew.py). Replaces work stealing, which one SPMD program
+    cannot do.
 
 Every mode returns (result shard, diagnostics) and the host wrapper owns the
 grow-and-retry loop for send/out capacity overflows, mirroring the join
@@ -69,7 +70,7 @@ def _all_gather_table(t: DeviceTable, axis: str) -> DeviceTable:
     """Replicate a sharded table to every device, compacting shard padding.
 
     Packed form: ONE tiled all_gather moves every int32 column + validity
-    word (f64 sidecars ride their own — no f64<->i64 bitcast on TPU), and
+    word (f64 sidecars ride their own, as in every packed layout), and
     ONE fused row-gather compacts the shards' valid prefixes (compact_rows)
     — vs two collectives + two gathers per column unpacked."""
     from .shuffle import _nbytes, record_comm_bytes

@@ -4,7 +4,7 @@ The reference is single-process — its "distributed" story is N tokio worker
 threads (SURVEY.md §5.8). Here the distributed executor's shard_map program
 is process-count-agnostic: under `jax.distributed`, N processes each own a
 slice of the global device mesh and execute the SAME compiled program, with
-collectives riding ICI/DCN on real multi-host TPU pods. This module holds
+collectives riding the devices' interconnect across hosts. This module holds
 the only three process-aware pieces:
 
   * `init_multihost`     — jax.distributed.initialize wrapper (call once per

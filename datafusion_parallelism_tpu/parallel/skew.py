@@ -4,7 +4,8 @@ The reference mitigates probe-side skew dynamically with
 WorkStealingRepartitionExec (reference
 src/operator/work_stealing_repartition_exec.rs:50-115) and benchmarks it with
 an exponential key distribution (reference src/api_utils.rs:15-23,
-benches/exponential_distribution.rs:183). TPUs cannot steal work at runtime —
+benches/exponential_distribution.rs:183). One SPMD program cannot steal work
+at runtime —
 skew must be resolved at shuffle time (SURVEY.md §2.9):
 
   1. a coarse histogram of probe-key hash buckets, psum'd across the mesh;

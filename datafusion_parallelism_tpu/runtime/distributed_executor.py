@@ -7,7 +7,7 @@ tokio partition streams (reference src/operator/parallel_hash_join.rs:140-152),
 with collectives standing in for its shared-memory rendezvous:
 
   * scans read per-device row shards (hash/contiguous partitioned tables);
-  * every hash join shuffles both children by key hash over ICI, then runs
+  * every hash join shuffles both children by key hash, then runs
     the single-chip vectorized join on its key range (all 8 types correct:
     each key lives on exactly one device);
   * aggregates run two-phase: local partial -> shuffle partials by group-key
@@ -57,6 +57,7 @@ from ..parallel.shuffle import (gather_shards, local_table, partition_table,
                                 shuffle_by_hash, unlocal_table)
 from ..utils.columnar import (DeviceTable, HostTable, filter_rows,
                               round_capacity)
+from .budget import memory_budget
 from .executor import ExecutorMetrics, QueryHandle
 
 
@@ -645,11 +646,13 @@ class DistributedQueryHandle(QueryHandle):
             return cfgd and len(joins) > 1
         total = sum(v.nbytes + valid.nbytes
                     for cols in leaf_cols for v, valid in cols.values())
-        threshold = int(os.environ.get("DFP_DIST_STAGE_THRESHOLD_BYTES",
-                                       1 << 30))
-        return len(joins) > 1 and total > threshold
+        return len(joins) > 1 and total > memory_budget().dist_stage_bytes
 
     def _finish(self, ocols, onum, root_sort) -> HostTable:
+        sharding = getattr(onum, "sharding", None)   # None once allgathered
+        if sharding is not None:
+            self.metrics.output_devices = sorted(
+                str(d) for d in sharding.device_set)
         out = gather_shards(self.plan.schema, ocols, onum)
         if root_sort is not None:
             from ..ops.sort import host_sort_table
@@ -718,15 +721,12 @@ class DistributedQueryHandle(QueryHandle):
                 big = max(scans, key=lambda s:
                           self.catalog.get(s.table_name).host.num_rows)
                 live_big = self._live_columns().get(big.table_name)
-                threshold = int(os.environ.get("DFP_STREAM_THRESHOLD_BYTES",
-                                               6 << 30))
-                row_threshold = int(os.environ.get(
-                    "DFP_STREAM_ROW_THRESHOLD", 1 << 26))
+                budget = memory_budget()
                 need_stream = (stream_upload_bytes(self.catalog,
                                                    big.table_name, live_big)
-                               > threshold
+                               > budget.stream_bytes
                                or self.catalog.get(big.table_name)
-                               .host.num_rows > row_threshold)
+                               .host.num_rows > budget.stream_rows)
             sp = plan_stream(self.plan, self.catalog)
             if sp is None and need_stream:
                 # side-swap rule: see runtime/executor.py — only fires when
@@ -741,7 +741,9 @@ class DistributedQueryHandle(QueryHandle):
                                          find_adaptive(self.plan))
 
         if self._sharded_inputs is None:
+            t0 = time.time()
             self._sharded_inputs = self._shard_inputs()
+            self.metrics.upload_s += time.time() - t0   # host split + upload
         labels, leaf_cols, leaf_rows, schemas, multiproc = self._sharded_inputs
 
         root_sort = self._root_local_sort()
@@ -934,6 +936,7 @@ class DistributedQueryHandle(QueryHandle):
                     self._staged_compiled[stage_idx] = (
                         stage_key(), compiled, stage_comm[stage_idx])
                 t0 = time.time()
+                self.metrics.launches += 1
                 ocols, onum, totals, balance = compiled(
                     leaf_cols, leaf_rows, mat_list)
                 if multiproc:
@@ -951,8 +954,8 @@ class DistributedQueryHandle(QueryHandle):
                 self._staged_compiled.pop(stage_idx, None)
 
             # per-device memory model: leaf shards + materialized inputs +
-            # this stage's output, all exact from static shapes (VERDICT
-            # round-2 item 4: assert each stage fits a v5e share)
+            # this stage's output, all exact from static shapes (tests
+            # assert each stage fits the device budget)
             Pn = self.mesh.devices.size
             self.metrics.stage_bytes.append({
                 "stage": stage_idx,

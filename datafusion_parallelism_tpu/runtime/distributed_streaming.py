@@ -7,7 +7,7 @@ Division of labor per chunk:
     start the async upload (double-buffered: chunk i+1 packs and uploads
     while chunk i computes — the only work the host does per chunk);
   * DEVICES (one shard_map program, compiled once): shuffle the chunk to
-    each path join's frozen build key range over ICI, probe, partial
+    each path join's frozen build key range, probe, partial
     aggregate LOCALLY, and fold into a per-device accumulator. No
     cross-device collective touches the accumulator until finish.
 

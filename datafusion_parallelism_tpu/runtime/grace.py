@@ -52,6 +52,7 @@ from ..ops.join import JoinType, prepare_build
 from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema,
                               concat_tables, pack_host_slice, packed_layout,
                               round_capacity, unpack_table)
+from .budget import memory_budget
 from .streaming import _contains, _path_to
 
 _DECOMPOSABLE = ("sum", "count", "count_star", "min", "max", "avg")
@@ -110,7 +111,7 @@ def plan_grace(plan: PhysicalPlan, catalog, row_threshold: int):
         key=lambda t: catalog.get(t).host.num_rows)
     if not all_big:
         return None, "no scan above the residency threshold"
-    ceiling = int(os.environ.get("DFP_GRACE_RESIDENT_CEILING", 96 << 20))
+    ceiling = memory_budget().grace_resident_rows
     first_reason = None
     for demote in range(len(all_big)):
         if demote and catalog.get(all_big[demote - 1]).host.num_rows \

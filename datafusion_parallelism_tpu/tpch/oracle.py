@@ -741,20 +741,25 @@ def _q21_np(t, li=None):
     lsk = _col(l, "l_suppkey").astype(np.int64)
     late = _col(l, "l_receiptdate") > _col(l, "l_commitdate")
 
-    # EXISTS(other supplier in order)     <=> order's distinct-supplier
-    #   count >= 2 (the row's own supplier is always in the set)
-    # NOT EXISTS(late other supplier)     <=> order's distinct LATE-supplier
-    #   count == 1 (the row itself is late, so its supplier is in the set)
+    # EXISTS(other supplier in order)     <=> the order's lines do not all
+    #   share one supplier (min != max; the row's own is always among them)
+    # NOT EXISTS(late other supplier)     <=> the order's LATE lines all
+    #   share one supplier (the row itself is late, so that one is its own)
+    # Per-order min/max is linear; a sort of 60M (order, supplier) pairs at
+    # SF10 was the oracle's slowest step.
     S = int(lsk.max()) + 1
     nord = int(lok.max()) + 1
-    pairs = np.unique(lok * S + lsk)
-    nsupp = np.bincount((pairs // S).astype(np.int64), minlength=nord)
-    pairs_late = np.unique(lok[late] * S + lsk[late])
-    nsupp_late = np.bincount((pairs_late // S).astype(np.int64),
-                             minlength=nord)
+
+    def one_supplier(orders, suppliers):
+        lo = np.full(nord, S, np.int64)
+        hi = np.full(nord, -1, np.int64)
+        np.minimum.at(lo, orders, suppliers)
+        np.maximum.at(hi, orders, suppliers)
+        return lo == hi
 
     m = (late & ord_f[lok] & supp_saudi[lsk]
-         & (nsupp[lok] >= 2) & (nsupp_late[lok] == 1))
+         & ~one_supplier(lok, lsk)[lok]
+         & one_supplier(lok[late], lsk[late])[lok])
     numwait = np.bincount(lsk[m], minlength=S)
 
     sname = _dict_of(sup, "s_name")

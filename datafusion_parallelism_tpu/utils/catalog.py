@@ -64,7 +64,8 @@ class RegisteredTable:
         """Share (0..1) of the most common valid value of `col` — the cheap
         histogram behind automatic skew salting (the reference mitigates the
         same skew dynamically with work stealing,
-        work_stealing_repartition_exec.rs:50-115; TPUs cannot steal, so the
+        work_stealing_repartition_exec.rs:50-115; an SPMD program cannot
+        steal, so the
         planner decides statically from this statistic). Computed once, on a
         bounded STRIDED sample for very large tables — a prefix sample
         grossly mis-estimates the hot-key share on value-clustered/sorted

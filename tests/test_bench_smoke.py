@@ -27,8 +27,6 @@ BENCHES = [
                          "--strategy", "oa"]),
     ("exponential_distribution.py", ["--rows", "4096"]),
     ("sort_bench.py", ["--rows", "4096", "--cols", "3"]),
-    ("roofline.py", ["--rows", "4096", "--iters", "2",
-                     "--out", "/tmp/roofline_smoke.json"]),
     ("my_benchmark.py", ["--base-batches", "8", "--iterations", "1"]),
 ]
 

@@ -91,3 +91,18 @@ def test_partitioned_empty_probe(mesh):
     build = {"b_key": [1, 2, 3], "b_val": [10, 20, 30]}
     probe = {"p_key": [99, 98], "p_val": [0, 1]}
     _run(mesh, build, probe, JoinType.FULL, "partitioned")
+
+
+def test_gather_shards_compiles_once(mesh):
+    from datafusion_parallelism_tpu.parallel.shuffle import (
+        _compact_shards, gather_shards, partition_table)
+
+    P = mesh.devices.size
+    t = HostTable.from_numpy({"k": np.arange(1000, dtype=np.int32),
+                              "v": np.arange(1000, dtype=np.float32)})
+    cols, nrows, schema, _ = partition_table(t, P)
+    first = gather_shards(schema, cols, nrows)
+    size = _compact_shards._cache_size()
+    again = gather_shards(schema, cols, nrows)
+    assert _compact_shards._cache_size() == size   # no new trace/compile
+    assert first.to_pylist() == again.to_pylist() == t.to_pylist()

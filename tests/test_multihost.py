@@ -2,7 +2,7 @@
 virtual CPU devices of one 8-device mesh, run the SAME distributed query
 and must both produce the oracle answer. This is the multi-host simulation
 layer the reference lacks (SURVEY.md §4) — the identical code path drives
-multi-host TPU pods via jax.distributed."""
+multi-host device meshes via jax.distributed."""
 
 import os
 import socket

@@ -25,3 +25,17 @@ def test_fast_oracle_matches_slow(tables, q):
                 assert a[k] == pytest.approx(b[k], rel=1e-9), (q, k)
             else:
                 assert a[k] == b[k], (q, k)
+
+
+def test_cli_reuses_oracle_answers(tables, monkeypatch):
+    from datafusion_parallelism_tpu.tpch import cli
+
+    argv = ["--query", "6", "--iterations", "1", "--check"]
+    answers = {}
+    assert cli.run(argv, tables=tables, oracle_cache=answers)["checked"][6]
+    assert set(answers) == {6}
+
+    def no_oracle(q, tables):
+        raise AssertionError("oracle recomputed")
+    monkeypatch.setattr(cli, "oracle_query", no_oracle)
+    assert cli.run(argv, tables=tables, oracle_cache=answers)["checked"][6]
